@@ -7,23 +7,18 @@ regime that type exists for -- document vectors over a large vocabulary
 -- end to end on device: sparse (ELL) build, ``EllBlocks`` pack, and
 dense-query serving, against the exact sparse scan.
 
-Measured (v5e, BASELINE.md round-5; 262,144 docs x 65,536-term vocab,
-32 terms/doc, 256 topic bands, T=8):
+Default shape: 262,144 docs x 65,536-term vocab, 32 terms/doc, 256
+topic bands, T=8.  What it shows:
 
-- exact sparse scan: ~10 QPS (the gather-contract scan is brutally
-  expensive at vocab scale -- exactly why the tree matters here);
-- per-pair ``knn_batched`` (ml=128, b=2): ~1007 QPS wall @ recall 0.104
-  (~99x the scan);
-- grouped ``knn_grouped`` at the same config: ~1176 QPS wall -- the
-  tile_chunk AUTO-CLAMP (``_ell_tile_chunk_cap``) bounds the per-step
-  dense-query tile at vocab dims (the default chunk OOM'd 18 GB of HBM
-  before round 5), after which block-fetch dedup beats per-pair;
-- ml=1024 (the n/topics sweet spot) trades QPS for recall
-  (253 QPS @ 0.131).
+- the exact sparse scan is expensive at vocab scale (a gather-contract
+  per document) -- exactly why the tree matters here;
+- per-pair ``knn_batched`` and grouped ``knn_grouped`` at the same
+  config; the tile_chunk AUTO-CLAMP (``_ell_tile_chunk_cap``) bounds the
+  grouped path's per-step dense-query tile at vocab dims;
+- a larger min_leaf (the n/topics sweet spot) trades QPS for recall.
 
 Recall saturates low on this family for the same structural reason
-iid-Gaussian does (32-nnz docs have near-tie neighbourhoods); the
-scan's recall-1.0 costs ~100x.
+iid-Gaussian does (32-nnz docs have near-tie neighbourhoods).
 
 Run: ``python examples/bow_sparse.py [n] [vocab] [min_leaf]``
 """
@@ -99,7 +94,7 @@ def main(n=N_DEFAULT, v=V_DEFAULT, ml=ML_DEFAULT):
 
     # sparse-QUERY form: the same documents as (cols, vals) tables --
     # [B, dim] never materializes (the innerSS regime at batch scale);
-    # grouped + a fat chunk is the measured-fastest sparse path
+    # grouped + a fat chunk is the fastest sparse path
     q_ell = EllMatrix(v, jnp.take(cols, qi, axis=0),
                       jnp.take(vals, qi, axis=0))
 

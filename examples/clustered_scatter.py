@@ -6,8 +6,8 @@ Gaussian mixture (r/scatter.r:1-42, README.md:7; reproduced verbatim by
 ``python -m rptree_tpu.demo``).  This renders the same picture on the
 CLUSTERED BENCH FAMILY (the flagship's data, reduced to 2-D): a
 Gaussian mixture with ``min_leaf ~ n/centers``, where each leaf tiles
-roughly one cluster -- the geometry behind the measured
-``min_leaf ~ n/centers`` sweet spot (BASELINE.md round-3/4).
+roughly one cluster -- the geometry behind the
+``min_leaf ~ n/centers`` sweet spot.
 
 Writes ``clustered_scatter.csv`` (point, leaf label -- the reference's
 CSV contract, Draw.hs:55-59) and, when matplotlib is importable,
@@ -34,7 +34,7 @@ def main(out_dir="."):
     x = (c[rng.integers(0, centers, n)]
          + sigma * rng.normal(size=(n, 2)).astype(np.float32))
 
-    min_leaf = max(8, n // centers)  # the measured clustered heuristic
+    min_leaf = max(8, n // centers)  # the clustered heuristic
     cfg = rp.rp_tree_cfg(min_leaf, n, 2)
     f = rp.forest_batch(seed, cfg.max_depth, min_leaf, 1, 1.0, x)
     labels = leaf_label_of_points(f)

@@ -3,13 +3,12 @@
 ``fold()`` places new points by the STORED thresholds (the placement step
 of the reference's ``insert``, ``Internal.hs:270-276``) without refreshing
 thresholds or margins, so a long-folded index drifts from what a rebuild
-would produce.  Round 3 measured the refine-vs-rebuild divergence
-(examples/refine_vs_rebuild.py); this script measures the missing piece
-(VERDICT r3 item 7): recall as a function of the FOLDED FRACTION, under a
+would produce.  examples/refine_vs_rebuild.py measures the
+refine-vs-rebuild divergence; this script measures the missing piece:
+recall as a function of the FOLDED FRACTION, under a
 stationary stream and under center drift, against a fresh rebuild at
 identical contents.  The recommended ``rebuild_every`` default in the
-``fold()`` docstring comes from this curve; the recorded run lives in
-BASELINE.md (round 4).
+``fold()`` docstring comes from this curve.
 
     python examples/fold_drift.py
 """

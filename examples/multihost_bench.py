@@ -2,17 +2,17 @@
 
 The recipe `tests/test_multihost.py` proves functionally, at bench size:
 two separate processes (the JAX stand-in for two hosts -- same code runs
-on a real TPU pod slice by swapping the coordinator address and dropping
+on real multi-host accelerators by swapping the coordinator address and dropping
 the CPU forcing), each
 
   1. ingesting ONLY its own shard of the rows from its own .fvecs file
      (per-host ingest; `jax.make_array_from_process_local_data`), then
   2. running the data-parallel forest build SPMD -- the distributed
-     radix-median collectives run over DCN+ICI,
+     radix-median collectives run across hosts and devices,
 
 and every host gets the same replicated tree structure back.  Prints
-per-host ingest MB/s, build wall, and a structure-equality check; the
-recorded run lives in BASELINE.md (round 4).  The reference has no
+per-host ingest MB/s, build wall, and a structure-equality check.  The
+reference has no
 distributed story at all (SURVEY.md section 2.11).
 
     python examples/multihost_bench.py [n_rows] [dim]
@@ -56,7 +56,7 @@ t0 = time.perf_counter()
 xs = jax.make_array_from_process_local_data(sharding, x_local, (n, dim))
 upload_s = time.perf_counter() - t0
 
-# stage 2: SPMD distributed-median build (collectives over DCN+ICI)
+# stage 2: SPMD distributed-median build (collectives across hosts)
 from rptree_tpu.config import rp_tree_cfg
 
 min_leaf = max(16, n // 256)

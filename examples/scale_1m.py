@@ -1,6 +1,5 @@
-"""Million-point scale check (the SIFT-1M-shaped measurement in
-BASELINE.md): build an 8-tree index over 1M synthetic 128-d vectors on
-one chip, pack to bf16 blocks, and report device-side build and query
+"""Million-point scale check (SIFT-1M-shaped): build an 8-tree index
+over 1M synthetic 128-d vectors on one device, pack to bf16 blocks, and report device-side build and query
 times plus recall@10 against the exact scan.
 
 Run: ``python examples/scale_1m.py [n]``  (default 1,000,000)

@@ -1,16 +1,10 @@
-"""Exact-scan ladder on live hardware (the Pallas regression hook).
+"""Exact-scan ladder on live hardware.
 
-Times every exact-scan implementation at the bench shape on the CURRENT
-backend and prints a QPS ladder:
-
-* XLA streaming scan (``_brute_force_many``) at precision
-  ``highest`` / ``default`` / ``fastest`` (per-tile ``approx_max_k``);
-* the fused Pallas kernel ``scan_topk`` (``ops/scan.py``) when the TPU
-  backend is available.
-
-Run each round to re-validate the recorded ladder in BASELINE.md (the
-kernel lost to ``approx_max_k`` on v5e when last measured; if a future
-backend flips the order, promote it in ``RPForest.brute_force_knn``).
+Times the XLA streaming scan (``_brute_force_many``) at the bench shape
+on the CURRENT backend at precision ``highest`` / ``default`` /
+``fastest`` (per-tile ``approx_max_k``) and prints a QPS ladder -- the
+yardstick a fused scan + running top-k kernel would have to beat before
+``RPForest.brute_force_knn`` promotes it.
 
 Run: ``python examples/scan_ladder.py [n] [batch]``
 """
@@ -29,7 +23,6 @@ def main(n: int = 100_000, b: int = 4096):
     import jax.numpy as jnp
 
     from rptree_tpu.models.forest import _brute_force_many
-    from rptree_tpu.ops.scan import pallas_scan_available, scan_topk
 
     dim, k = 128, 10
     key = jax.random.PRNGKey(0)
@@ -67,15 +60,6 @@ def main(n: int = 100_000, b: int = 4096):
             lambda p=prec: np.asarray(
                 _brute_force_many(x, sq, q[:512], k, "l2", p, 256)[1]),
         )
-    if pallas_scan_available():
-        timed(
-            "pallas scan_topk",
-            lambda: int(jnp.sum(jnp.clip(
-                scan_topk(x, sq, q, k)[1], 0, None))),
-            lambda: np.asarray(scan_topk(x, sq, q[:512], k)[1]),
-        )
-    else:
-        print("  pallas scan_topk: backend unavailable (TPU only)")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,8 @@ doubles as an executable smoke test:
 
 Stages:
   0. probe   -- read a subsample, sweep build-side knobs with
-                rptree_tpu.tune_build (min_leaf transfers by the measured
-                n/centers scale law; BASELINE.md round-3);
+                rptree_tpu.tune_build (min_leaf transfers by the
+                n/centers scale law);
   1. ingest  -- native chunked readers (rptree_tpu.ingest, C++ via
                 ctypes) streamed into the builder;
   2. build   -- streaming build at the tuned parameters;
@@ -19,9 +19,6 @@ Stages:
                 measured against the exact answer on held-out queries;
   4. serve   -- packed one-dispatch batches (knn_batched);
   5. evaluate-- recall@k against the ground truth (file or brute force).
-
-The recorded end-to-end numbers for the clustered-1M .fvecs run live in
-BASELINE.md (round 4).
 """
 
 import os
@@ -71,7 +68,7 @@ def main(base=None, query=None, gt=None, n_trees=8, k=10,
             return rp.ingest.fvecs_source(base, chunk_size=200_000)
 
     # stage 0: build-side knobs on the subsample (min_leaf transfers to
-    # the full n by the measured scale law).  RPTREE_EXAMPLE_FAST=1
+    # the full n by the n/centers scale law).  RPTREE_EXAMPLE_FAST=1
     # narrows the sweep grids (the test-suite smoke mode: the pipeline's
     # stages all still run, but the wall is XLA compiles of one program
     # per swept config, so fewer configs is most of the wall).
@@ -117,7 +114,7 @@ def main(base=None, query=None, gt=None, n_trees=8, k=10,
             for s in range(0, len(xq), 2048)])
 
     if best.get("scan"):
-        # tune() found the exact MXU scan to be the cheapest config
+        # tune() found the exact scan to be the cheapest config
         # meeting the target (small/hard datasets) -- serve with it
         print("serving via the exact scan (tune() picked it)")
 
@@ -126,7 +123,7 @@ def main(base=None, query=None, gt=None, n_trees=8, k=10,
                                      query_chunk=2048)[1]
     else:
         # query-grouped block-resident rerank: same results as knn(),
-        # ~2x on clustered/real embedding data (BASELINE.md round-4)
+        # faster where probes overlap (clustered/real embedding data)
         def serve():
             return f.knn_grouped(xq, k, budget=best["budget"],
                                  probes=best["probes"],

@@ -2,7 +2,7 @@
 //
 // The reference's streaming source is a Haskell conduit decoding MNIST IDX
 // files (bench/time/Main.hs:113-121 via mnist-idx-conduit); its batch data
-// comes from in-memory generators.  The TPU rebuild feeds multi-GB
+// comes from in-memory generators.  This engine feeds multi-GB
 // benchmark datasets (SIFT/GIST .fvecs/.bvecs, MNIST .idx) through the
 // chunked host pipeline (rptree_tpu/streaming.py), where Python-level
 // parsing is the bottleneck -- hence this small native reader, exposed via
@@ -63,9 +63,8 @@ int xvecs_meta(const char* path, int64_t value_size, int64_t* rows,
 
 // Shared block-buffered reader for the 4-byte-value xvecs layouts
 // (fvecs/ivecs): whole rows stream through an 8 MB buffer in a few
-// fread calls per buffer instead of TWO PER ROW (header + payload) --
-// the per-row variant measured 44 MB/s on a 512 MB file, this one
-// ~1.2 GB/s warm-cache (BASELINE.md round-4).
+// fread calls per buffer instead of TWO PER ROW (header + payload),
+// which dominated the per-row variant's cost.
 static int xvecs4_read_impl(const char* path, int64_t start, int64_t count,
                             int64_t dim, char* out) {
   FILE* f = std::fopen(path, "rb");

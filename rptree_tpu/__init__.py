@@ -1,4 +1,4 @@
-"""tpu-rpforest: a TPU-native random-projection-forest ANN engine.
+"""tpu-rpforest: a random-projection-forest ANN engine for accelerators.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the Haskell
 ``rp-tree`` library (ocramz/rp-tree; sparse random projection trees per
@@ -26,27 +26,43 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA compilation cache: first-build compiles through remote-
-# compile TPU backends cost minutes; cached reloads are sub-second.  Opt
-# out with RPTREE_TPU_NO_CACHE=1 or by setting jax's cache dir yourself.
-_platforms = (_os.environ.get("JAX_PLATFORMS", "")
-              or (getattr(_jax.config, "jax_platforms", None) or ""))
-if (not _os.environ.get("RPTREE_TPU_NO_CACHE")
-        and not _os.environ.get("JAX_COMPILATION_CACHE_DIR")
-        and _jax.config.jax_compilation_cache_dir is None
-        # CPU AOT cache entries are machine-fingerprinted and reloading
-        # them across feature mismatches risks SIGILL; the cache matters
-        # for slow remote-compile TPU backends only
-        and "cpu" not in _platforms):
-    _cache = _os.path.join(_os.path.expanduser("~"), ".cache",
-                           "rptree_tpu", "jax")
+#: Persistent compile cache used when ``JAX_COMPILATION_CACHE_DIR`` is not
+#: set: a fixed path inside the checkout (the path is part of the cache
+#: key, so a directory that moves never hits).
+CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def _compile_cache_dir(environ, platforms):
+    """Where this process keeps JAX's persistent compile cache, or None.
+
+    ``JAX_COMPILATION_CACHE_DIR`` wins (JAX reads it itself, so no other
+    directory is set); ``RPTREE_TPU_NO_CACHE=1`` opts out; CPU runs keep
+    no cache (CPU executables are fingerprinted to the host's features,
+    and reloading one across a mismatch risks SIGILL).  Otherwise
+    :data:`CACHE_DIR`."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if environ.get("RPTREE_TPU_NO_CACHE"):
+        return None
+    if "cpu" in (platforms or ""):
+        return None
+    return CACHE_DIR
+
+
+_cache = _compile_cache_dir(
+    _os.environ, _os.environ.get("JAX_PLATFORMS", "")
+    or (_jax.config.jax_platforms or ""))
+if _cache is not None and _jax.config.jax_compilation_cache_dir is None:
     try:
         _os.makedirs(_cache, exist_ok=True)
+    except OSError:  # read-only checkout: run without a persistent cache
+        _cache = None
+    if _cache is not None:
         _jax.config.update("jax_compilation_cache_dir", _cache)
         _jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
         _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except (OSError, AttributeError):  # read-only fs / older jax
-        pass
 
 from .config import (BenchConfig, ForestConfig, RPTreeConfig,
                      rp_tree_cfg, rp_tree_cfg_clustered)

@@ -6,8 +6,8 @@ Mirrors the reference's configuration surface:
   reference (``src/Data/RPTree/Conduit.hs:123-141``): closed-form defaults
   for max tree depth, streaming chunk size, and projection nonzero density.
 * ``BenchConfig`` -- the 9-field experiment descriptor of the reference
-  (``src/Data/RPTree/Internal/Testing.hs:21-31``), extended with TPU mesh
-  fields (which have no reference counterpart; see SURVEY.md section 2.11).
+  (``src/Data/RPTree/Internal/Testing.hs:21-31``), extended with device
+  mesh fields (which have no reference counterpart; see SURVEY.md section 2.11).
 """
 
 from __future__ import annotations
@@ -60,11 +60,11 @@ def rp_tree_cfg(min_leaf: int, n: int, dim: int) -> RPTreeConfig:
 def rp_tree_cfg_clustered(n: int, dim: int, *,
                           centers: int) -> "RPTreeConfig":
     """Closed-form construction heuristic for CLUSTERED data (Gaussian
-    mixtures and real embedding workloads), the measured counterpart of
+    mixtures and real embedding workloads), the empirical counterpart of
     the reference's iid heuristic :func:`rp_tree_cfg`.
 
-    The round-3 sweeps (BASELINE.md) measured ``min_leaf ~ n / centers``
-    as the recall/QPS sweet spot: the per-tree leaf then covers most of a
+    Sweeps over clustered data (``examples/clustered_1m.py``) put
+    ``min_leaf ~ n / centers`` at the recall/QPS sweet spot: the per-tree leaf then covers most of a
     query's cluster and the cross-tree union the rest (half that size
     saturates recall at the union-reachable set; double reaches higher
     recall at ~0.7x the QPS).  Serve with ``budget=1`` and
@@ -103,7 +103,7 @@ class ForestConfig:
 class BenchConfig:
     """Experiment descriptor, field-for-field parity with the reference's
     ``BenchConfig`` (``src/Data/RPTree/Internal/Testing.hs:21-31``) plus
-    TPU-only fields (mesh axes) that have no reference counterpart."""
+    device-mesh fields that have no reference counterpart."""
 
     description: str
     max_depth: int
@@ -114,7 +114,7 @@ class BenchConfig:
     vector_dim: int
     data_size: int
     num_query_points: int
-    # TPU-only extensions
+    # extensions with no reference counterpart
     batch_size: int = 128        # query batch size
     n_tree_shards: int = 1       # mesh axis over the forest (tree parallelism)
     n_query_shards: int = 1      # mesh axis over the query batch

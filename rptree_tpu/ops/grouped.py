@@ -3,39 +3,36 @@
 The leaf-blocked rerank (:func:`rptree_tpu.models.forest._score_blocks`)
 fetches each probed leaf block once PER (query, probe) pair -- on clustered
 data, where many queries in a batch probe the same blocks (their shared
-cluster's leaves), the same bytes stream from HBM over and over, and the
-contraction is a per-query GEMV.  This module restructures the scoring the
-MXU way (the round-2/round-3 VERDICT lever):
+cluster's leaves), the same bytes stream from device memory over and
+over, and the contraction is a per-query GEMV.  This module restructures
+the scoring as small matrix products:
 
 1. flatten the batch's (query, probe) pairs and sort them by probed block
    id (one 2-operand ``lax.sort``);
 2. chop each equal-block run into TILES of at most ``tile_m`` pairs -- a
    tile references exactly ONE block;
 3. per tile: fetch the resident block once, gather the tile's ``tile_m``
-   query rows, and score with ONE ``[tile_m, D] x [D, lmax]`` MXU matmul
-   (batched over a chunk of tiles as one einsum);
+   query rows, and score with ONE ``[tile_m, D] x [D, lmax]`` matmul
+   (batched over a chunk of tiles as one einsum here; the Triton kernel
+   of :mod:`.grouped_kernel` scores each tile without materializing the
+   gathered blocks);
 4. scatter each pair's distance row back to its slot; the caller then
    runs the UNCHANGED selection tail of the per-pair path (ids fetched as
    whole blocks, payload-carrying sort, top-k merge).
 
 Step 3 fetches each distinct block once per TILE instead of once per pair:
 with mean group size ``c`` the block-fetch bytes drop ~``min(c, tile_m)``x
-and the contraction runs at matmul rate (measured at the clustered 1M
-flagship, v5e: the fetch+contract stage fell 77ms -> ~5ms per 32768-query
-batch; BASELINE.md round-4).  A per-pair top-k pre-reduction inside the
-tiles was MEASURED far slower (+177ms: many narrow per-tile sorts at
-~4.4x the per-element cost of the wide per-query sort), so the selection
-tail stays the per-pair path's -- results are bit-comparable by
-construction.
+and the contraction runs at matmul rate.  The selection tail stays the
+per-pair path's -- results are bit-comparable by construction.
 
-Numerics: the tile einsum contracts f32 blocks at a FLOOR of ``HIGH``
-(3-pass bf16) regardless of the caller's knob -- the small-M
-(``tile_m``) matmul lowers through a path whose DEFAULT-precision
-accumulation measurably loses ranking accuracy on near-equidistant
-clustered data (recall 0.860 at DEFAULT vs 0.9248 at HIGH vs 0.9249 at
-HIGHEST at the 1M flagship; HIGH and HIGHEST are time-identical there
-because the passes overlap the block fetch).  An explicit ``"highest"``
-is honored; bf16/int8 blocks keep their native pipelines.
+Numerics: f32 blocks contract at an accuracy floor regardless of the
+caller's knob (:func:`f32_dot_precision`, shared with the kernel path):
+a single reduced-precision pass (one TF32 pass on the GPU) loses
+ranking accuracy on near-equidistant clustered data, where distances
+are small differences of large squared norms, so any setting below
+``"highest"`` runs the 3-pass TF32 algorithm.  An explicit
+``"highest"`` is honored; bf16/int8 blocks keep their native
+pipelines.
 
 Static shapes: the number of tiles ``sum_g ceil(c_g / tile_m)`` is
 data-dependent, so the kernel takes a static tile capacity ``nt`` and
@@ -44,7 +41,8 @@ masked (their slots return +inf).  The caller (``RPForest.knn_grouped``)
 checks the returned count and retries with the next capacity bucket --
 results are exact whenever ``needed <= nt``.  Reference analogue: the
 rerank fold of ``knn`` (``src/Data/RPTree.hs:159-176``); the grouping
-itself is TPU-native restructuring with no reference counterpart.
+itself is a restructuring for the accelerator with no reference
+counterpart.
 """
 
 from __future__ import annotations
@@ -58,7 +56,7 @@ from .shared import fetch_blocks
 from .sparse import EllBlocks
 
 __all__ = ["grouped_distances", "grouped_distances_kernel",
-           "grouped_topk_kernel"]
+           "f32_dot_precision"]
 
 _BIG = 1 << 30  # sentinel block id for masked pairs (sorts to the end)
 
@@ -75,10 +73,8 @@ def _tile_tables(gsel, lsel, tile_m: int, nt: int, with_slots=False):
     ``with_slots`` appends ``slot int32[b * p]``: each PAIR's flat tile
     slot ``tid * tile_m + row`` (``nt * tile_m`` for pairs in no tile --
     masked probes and capacity overflow), i.e. the inverse of ``tp``.
-    It rides ONE extra flat sort on the already-sorted pair ids -- the
-    scatter alternative (`.at[dest].set(iota)`) measured ~4 ns PER PAIR
-    on v5e (3.6 ms of the flagship chunk's 7.9 ms reorder), the sort
-    ~0.3 ms."""
+    It rides ONE extra flat sort on the already-sorted pair ids instead
+    of a per-pair scatter (`.at[dest].set(iota)`)."""
     b, p = gsel.shape
     e = b * p
     g_flat = jnp.where(lsel >= 0, gsel, _BIG).reshape(e)
@@ -107,6 +103,18 @@ def _tile_tables(gsel, lsel, tile_m: int, nt: int, with_slots=False):
     return tile_block[:nt], tile_pair[:nt], needed, slot
 
 
+def f32_dot_precision(precision):
+    """The dot precision f32 blocks contract at under the caller's
+    ``precision`` (a ``lax.Precision``), on both the XLA and the kernel
+    path: ``HIGHEST`` is IEEE f32; any lower setting gets the 3-pass TF32
+    algorithm on the GPU, whose single TF32 pass loses ranking accuracy
+    (see the module docstring), and IEEE f32 on other backends, which
+    have no TF32 algorithms."""
+    if precision == lax.Precision.HIGHEST or jax.default_backend() != "gpu":
+        return lax.Precision.HIGHEST
+    return lax.DotAlgorithmPreset.TF32_TF32_F32_X3
+
+
 def _quantize_rows(qrows):
     """Symmetric per-row int8 quantization of query rows ``[..., D]``;
     returns (int8 rows, f32 scale [..., 1])."""
@@ -129,13 +137,14 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
         pair once and contracts by gathering the tile's DENSE query rows at
         the stored column indices (the batched ``innerSD`` pointer walk,
         reference ``Internal.hs:369-382``); the block-fetch saving is the
-        same, the contraction stays gather-based (no MXU for sparse rows).
+        same, the contraction stays gather-based (no matmul for sparse
+        rows).
       lens_of_block: ``int32[G_global]`` occupancy per GLOBAL block id
         (static plan lengths or the dynamic post-fold table).
       gsel/lsel: probe selection ``int32[B, P]`` (global block id / leaf
         id with -1 = masked) from ``_select_probes``.
       q: ``f32[B, D]`` queries.
-      tile_m: pairs per tile (the MXU M dimension).
+      tile_m: pairs per tile (the matmul M dimension).
       nt: static tile capacity; must be a multiple of ``tile_chunk``.
       tile_chunk: tiles scored per ``lax.map`` step (bounds peak memory).
       row_of: optional ``int32[G_global]`` global-block-id -> storage-row
@@ -161,16 +170,15 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
     mu = mudr = None
     if block_center is not None:
         mu, mudr = block_center
-    # the small-M einsum's DEFAULT lowering loses accumulation accuracy
-    # (see module docstring), so f32 blocks get a floor of HIGH (3-pass
-    # bf16: recall 0.9248 vs HIGHEST's 0.9249 at the 1M flagship,
-    # measurably cheaper in isolation; BASELINE.md round-4); an explicit
-    # "highest" is honored.  bf16 blocks keep the caller's knob, like
-    # the per-pair scorer.
+    # f32 blocks get the accuracy floor (see module docstring); bf16
+    # blocks keep the caller's knob, like the per-pair scorer.
     is_ell = isinstance(x_leaf, EllBlocks)
-    if (not is_ell and x_leaf.dtype == jnp.float32
-            and precision != lax.Precision.HIGHEST):
-        prec_eff = lax.Precision.HIGH
+    if not is_ell and x_leaf.dtype == jnp.int8 and mu is None:
+        # quantize each query once (a per-row op), then gather its tile
+        # rows -- the kernel path shares this exact computation
+        q_i8_all, qs_all = _quantize_rows(q)
+    if not is_ell and x_leaf.dtype == jnp.float32:
+        prec_eff = f32_dot_precision(precision)
     else:
         prec_eff = precision
 
@@ -229,7 +237,8 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
                         + dots_i.astype(jnp.float32)
                         * bscale[:, None, None] * qscale)
             else:
-                q_i8, qscale = _quantize_rows(qt)
+                q_i8 = jnp.take(q_i8_all, qi, axis=0)
+                qscale = jnp.take(qs_all, qi, axis=0)
                 dots_i = jnp.einsum("nmd,nld->nml", q_i8, blk,
                                     preferred_element_type=jnp.int32)
                 dots = (dots_i.astype(jnp.float32)
@@ -256,95 +265,57 @@ def grouped_distances(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
 
     # ---- reorder each pair's distance row back to its slot ---------------
     # (inverse-permutation row GATHER via the `inv` table that rides the
-    # tile sort; the row-scatter form measured ~2x this on v5e)
+    # tile sort, cheaper than a row scatter)
     with jax.named_scope("rpt_pair_reorder"):
         pad = jnp.concatenate([d_all, jnp.full((1, lmax), jnp.inf)],
                               axis=0)
         return jnp.take(pad, inv, axis=0).reshape(b, p, lmax), needed
 
 
-def grouped_topk_kernel(x_leaf, sq_leaf, id_leaf, lens_of_block, gsel,
-                        lsel, q, metric, precision, tile_m: int, nt: int,
-                        kp: int, tc_k: int = 16, row_of=None):
-    """Per-pair top-``kp`` candidates via the fused kernel: same tiling as
-    :func:`grouped_distances_kernel`, but each tile slot returns only its
-    ``kp`` nearest (distance, POINT ID) in-block candidates -- the ids ride
-    the tile DMA block-granular, so the caller's selection tail shrinks
-    from ``probes * lmax`` wide to ``probes * kp`` with no per-element id
-    gather (see :func:`..grouped_kernel.grouped_score_topk` for the
-    exactness argument: kp >= k suffices for the final per-query top-k;
-    ``min_votes > 1`` callers need the full lists and keep the full
-    kernel).
-
-    Returns ``(d f32[B, P, kp], ids int32[B, P, kp], needed)``: masked /
-    overflow slots carry (+inf, -1); exact iff ``needed <= nt``.
-    """
-    from .grouped_kernel import grouped_score_topk
-
-    b, p = gsel.shape
-    e = b * p
-    nt = -(-int(nt) // tc_k) * tc_k
-    tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
-                                       with_slots=True)
-    rows_of = tb if row_of is None else jnp.take(row_of, tb)
-    lens_t = jnp.take(lens_of_block, tb)
-    qi = jnp.where(tp >= 0, tp // p, 0).reshape(-1)
-    qt = jnp.take(q, qi, axis=0)
-    prec = (lax.Precision.HIGHEST if x_leaf.dtype == jnp.float32
-            else None)
-    d_all, i_all = grouped_score_topk(x_leaf, sq_leaf, id_leaf, rows_of,
-                                      lens_t, qt, metric, tile_m, tc_k,
-                                      kp, precision=prec)
-    d_pad = jnp.concatenate([d_all, jnp.full((1, kp), jnp.inf)], axis=0)
-    i_pad = jnp.concatenate([i_all, jnp.full((1, kp), -1, jnp.int32)],
-                            axis=0)
-    d = jnp.take(d_pad, inv, axis=0).reshape(b, p, kp)
-    ids = jnp.take(i_pad, inv, axis=0).reshape(b, p, kp)
-    return d, ids, needed
-
-
 def grouped_distances_kernel(x_leaf, sq_leaf, lens_of_block, gsel, lsel, q,
                              metric, precision, tile_m: int, nt: int,
-                             tc_k: int = 16, row_of=None,
-                             block_scale=None):
+                             row_of=None, block_scale=None,
+                             interpret=False):
     """Same contract as :func:`grouped_distances`, with the tile scoring
-    in the fused Pallas kernel (:mod:`.grouped_kernel`) and the pair
-    reorder as an inverse-permutation ROW GATHER instead of the row
-    scatter (both measured at the 1M clustered flagship, v5e, per
-    32768-query batch: score stage 27.4 -> 9.4 ms, reorder 6.4 -> 4.0 ms;
-    end-to-end 499k -> ~670k device QPS; BASELINE.md round-4+).
+    in the fused Pallas kernel (:mod:`.grouped_kernel`), which reads each
+    tile's block straight from ``x_leaf`` instead of materializing the
+    gathered ``[nt, lmax, D]`` blocks, and the pair reorder as an
+    inverse-permutation ROW GATHER.
 
-    Numerics: f32 blocks contract at ``HIGHEST`` inside the kernel (the
-    single-pass default measured recall 0.860 vs 0.938 at the flagship --
-    same failure mode as the XLA einsum's DEFAULT -- and HIGHEST costs
-    only ~1.3 ms over it there); bf16 blocks run their native single
-    pass.  Dense f32/bf16 + l2/sql2 only (callers gate with
-    :func:`grouped_kernel_ok` and fall back to the XLA path).
+    Numerics: f32 blocks contract at :func:`f32_dot_precision`, the XLA
+    path's accuracy floor; bf16 blocks run their native single pass;
+    int8 blocks dot exactly in int32.  Dense f32/bf16/int8 + l2/sql2 only (callers gate
+    with :func:`.grouped_kernel.grouped_kernel_ok` and fall back to the
+    XLA path).
     """
-    from .grouped_kernel import grouped_score_tiles
+    from .grouped_kernel import grouped_score_tiles, grouped_score_tiles_int8
 
     b, p = gsel.shape
-    e = b * p
     lmax = x_leaf.shape[-2]
-    nt = -(-int(nt) // tc_k) * tc_k  # grid walks tc_k-tile chunks
-    tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
-                                       with_slots=True)
+    with jax.named_scope("rpt_tile_tables"):
+        tb, tp, needed, inv = _tile_tables(gsel, lsel, tile_m, nt,
+                                           with_slots=True)
+        lens_t = jnp.take(lens_of_block, tb)
     rows_of = tb if row_of is None else jnp.take(row_of, tb)
-    lens_t = jnp.take(lens_of_block, tb)
     qi = jnp.where(tp >= 0, tp // p, 0).reshape(-1)
     qt = jnp.take(q, qi, axis=0)  # [nt * tile_m, D] in tile-slot order
-    if x_leaf.dtype == jnp.int8:
-        from .grouped_kernel import grouped_score_tiles_int8
-
-        d_all = grouped_score_tiles_int8(x_leaf, sq_leaf, block_scale,
-                                         rows_of, lens_t, qt, metric,
-                                         tile_m, tc_k)
-    else:
-        prec = (lax.Precision.HIGHEST if x_leaf.dtype == jnp.float32
-                else None)
-        d_all = grouped_score_tiles(x_leaf, sq_leaf, rows_of, lens_t, qt,
-                                    metric, tile_m, tc_k, precision=prec)
+    with jax.named_scope("rpt_grouped_score"):
+        if x_leaf.dtype == jnp.int8:
+            q_i8, qs = _quantize_rows(q)  # once per query, as the XLA path
+            d_all = grouped_score_tiles_int8(
+                x_leaf, sq_leaf, block_scale, rows_of, lens_t,
+                jnp.take(q_i8, qi, axis=0), jnp.take(qs[:, 0], qi),
+                jnp.sum(qt * qt, axis=1), metric, tile_m,
+                interpret=interpret)
+        else:
+            prec = (f32_dot_precision(precision)
+                    if x_leaf.dtype == jnp.float32 else None)
+            d_all = grouped_score_tiles(
+                x_leaf, sq_leaf, rows_of, lens_t, qt, metric, tile_m,
+                precision=prec, interpret=interpret)
     # pair reorder: pairs in no tile (masked probes / capacity overflow)
     # read the +inf pad row; `inv` rides the tile sort (see _tile_tables)
-    pad = jnp.concatenate([d_all, jnp.full((1, lmax), jnp.inf)], axis=0)
-    return jnp.take(pad, inv, axis=0).reshape(b, p, lmax), needed
+    with jax.named_scope("rpt_pair_reorder"):
+        pad = jnp.concatenate([d_all, jnp.full((1, lmax), jnp.inf)],
+                              axis=0)
+        return jnp.take(pad, inv, axis=0).reshape(b, p, lmax), needed

@@ -1,24 +1,31 @@
-"""Fused tile-scoring kernel for the query-grouped rerank (Pallas / TPU).
+"""Fused tile-scoring kernel for the query-grouped rerank (Pallas / Triton).
 
-The XLA lowering of the grouped score map (:mod:`.grouped`) measured
-~27 ms per 32768-query batch at the 1M clustered flagship -- ~100 GB/s
-effective on a stage whose bytes are one 32 KB block DMA per tile plus
-sequential query rows (the random-block gather does not reach anywhere
-near HBM rate through ``jnp.take`` + ``lax.map``, and its fusion with the
-small-M einsum is compile-time unstable).  This kernel drives the same
-work through the scalar-prefetch pipeline: the grid walks CHUNKS of
-``tc_k`` tiles; per tile the BlockSpec index_map (reading the prefetched
-per-tile block table) DMAs the resident leaf block HBM->VMEM with
-automatic double buffering, the tile's query rows arrive as a sequential
-block, and ONE ``[tile_m, D] x [D, lmax]`` MXU matmul + the factored-L2
-assembly + occupancy masking run in VMEM.  Output rows for empty tile
-slots are junk by construction -- the caller's pair reorder never reads
-them (their ``tile_pair`` entry is -1).
+The XLA lowering of the grouped score map (:func:`.grouped.
+grouped_distances`) gathers every tile's leaf block into a fresh
+``[nt, lmax, D]`` array in device memory and then runs a batched matmul
+with M = ``tile_m`` over it: each probed block is read, written and read
+again.  This kernel scores the same tiles without materializing the
+gathered blocks: one program per tile reads the tile's block row
+straight from the packed ``x_leaf`` (the block index comes from the
+tile table, loaded by the program itself), contracts it against the
+tile's ``tile_m`` query rows with ``pl.dot`` in chunks of ``_BL``
+slots, assembles the factored L2 and the occupancy mask, and writes
+only the ``[tile_m, lmax]`` distance rows.  Programs are
+independent (no state carried between grid steps), so they spread over
+every SM.
+
+Triton wants power-of-two block shapes: the slot axis is walked in
+power-of-two chunks and the feature axis is padded to one, both through
+masked loads (masked lanes read 0 and contribute nothing to the dots);
+``tile_m`` must itself be a power of two >= 16 (the tensor-core dot's
+minimum M).  Output rows for empty tile slots are junk by construction --
+the caller's pair reorder never reads them (their ``tile_pair`` entry is
+-1).
 
 Dense f32/bf16/int8 blocks, ``l2``/``sql2`` only; other layouts/metrics
 keep the XLA path.  Reference analogue: the rerank fold of ``knn``
-(``src/Data/RPTree.hs:159-176``); the tiling is TPU-native restructuring
-with no reference counterpart.
+(``src/Data/RPTree.hs:159-176``); the tiling is a restructuring for the
+accelerator with no reference counterpart.
 """
 
 from __future__ import annotations
@@ -27,319 +34,172 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-
-try:  # pallas TPU backend (absent on some CPU-only installs)
-    from jax.experimental.pallas import tpu as pltpu
-except Exception:  # pragma: no cover
-    pltpu = None
+from jax.experimental.pallas import triton as plgpu
 
 __all__ = ["grouped_score_tiles", "grouped_score_tiles_int8",
-           "grouped_score_topk", "grouped_kernel_ok"]
+           "grouped_kernel_ok"]
+
+# Triton's dot needs every operand dimension >= 16 (int8 >= 32 along K)
+_MIN_DIM = 16
+# slots contracted per dot (the slot axis is walked in chunks of this)
+_BL = 64
+# Triton compile parameters of both tile kernels (not yet tuned)
+_COMPILER = dict(num_warps=4, num_stages=2)
 
 
-def grouped_kernel_ok(x_leaf, metric, precision=None) -> bool:
-    """Shape/metric gate: dense f32/bf16/int8 blocks, sublane-tiled slot
-    axis, l2/sql2.  (The lane axis D need not be 128-aligned -- measured
-    fine at D=64 -- but the slot axis must match the dtype's sublane
-    tile.)"""
+def _pow2(n: int, lo: int = 1) -> int:
+    return max(lo, 1 << max(0, int(n) - 1).bit_length())
+
+
+def grouped_kernel_ok(x_leaf, metric, tile_m: int = 16) -> bool:
+    """Shape/metric gate: dense resident f32/bf16/int8 blocks (a 3-D
+    ``[G, lmax, D]`` array -- shared-row and sparse layouts have no
+    ``ndim``), builtin ``l2``/``sql2``, and a power-of-two ``tile_m`` of
+    at least 16 (the dot's M).  ``lmax`` and ``D`` are free: the kernel
+    pads both to powers of two with masked loads."""
     if metric not in ("l2", "sql2"):
         return False
-    if not (hasattr(x_leaf, "ndim") and getattr(x_leaf, "ndim", 0) == 3):
+    if getattr(x_leaf, "ndim", 0) != 3:
         return False
-    if x_leaf.dtype == jnp.float32:
-        return x_leaf.shape[1] % 8 == 0
-    if x_leaf.dtype == jnp.bfloat16:
-        return x_leaf.shape[1] % 16 == 0
-    if x_leaf.dtype == jnp.int8:
-        return x_leaf.shape[1] % 32 == 0
-    return False
+    if x_leaf.dtype not in (jnp.float32, jnp.bfloat16, jnp.int8):
+        return False
+    tm = int(tile_m)
+    return tm >= _MIN_DIM and tm & (tm - 1) == 0
+
+
+def _blocking(lmax: int, d: int, dtype):
+    dp = _pow2(d, 2 * _MIN_DIM if dtype == jnp.int8 else _MIN_DIM)
+    bl = min(_BL, _pow2(lmax, _MIN_DIM))
+    return dp, bl, -(-lmax // bl)
+
+
+def _store_rows(out_ref, rows, cols, dd, ln, lmax, metric):
+    """Shared epilogue: clamp, optional sqrt, occupancy mask, store."""
+    dd = jnp.maximum(dd, 0.0)
+    if metric == "l2":
+        dd = jnp.sqrt(dd)
+    dd = jnp.where(cols[None, :] < ln, dd, jnp.inf)
+    plgpu.store(out_ref.at[rows[:, None], cols[None, :]], dd,
+                mask=(cols < lmax)[None, :])
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("metric", "tile_m", "tc_k", "interpret", "precision"),
-)
+    jax.jit, static_argnames=("metric", "tile_m", "precision", "interpret"))
 def grouped_score_tiles(x_leaf, sq_leaf, tb, lens_t, qt, metric, tile_m,
-                        tc_k, precision=None, interpret=False):
+                        precision=None, interpret=False):
     """Exact per-slot distances of every tile: ``d[nt * tile_m, lmax]``.
 
     ``x_leaf: [G, lmax, D]`` packed blocks (f32/bf16), ``sq_leaf:
     f32[G, lmax]`` slot squared norms, ``tb: int32[nt]`` block row per
     tile, ``lens_t: int32[nt]`` occupancy per tile, ``qt:
     f32[nt * tile_m, D]`` query rows in tile-slot order (empty slots may
-    carry any row -- their output is never read).  ``nt`` must be a
-    multiple of ``tc_k``.  Slots at/after a tile's occupancy return
-    +inf; rows of empty slots are junk (callers drop them via the pair
-    reorder).
+    carry any row -- their output is never read).  ``precision`` is the
+    dot precision (see :func:`.grouped.f32_dot_precision`).  Slots
+    at/after a tile's occupancy return +inf.
     """
     g, lmax, d = x_leaf.shape
     nt = tb.shape[0]
-    assert nt % tc_k == 0, (nt, tc_k)
     dt = x_leaf.dtype
+    dp, bl, n_chunks = _blocking(lmax, d, dt)
     prec = precision
+    if interpret and isinstance(prec, lax.DotAlgorithmPreset):
+        prec = lax.Precision.HIGHEST  # the CPU has no TF32 algorithms
 
-    def kern(tb_ref, *refs):
-        # lens arrives as a per-chunk VMEM block, NOT scalar prefetch:
-        # only tb (the BlockSpec index source) must live in SMEM, and
-        # SMEM bounds the single-call tile capacity (nt=147456 with two
-        # s32[nt] prefetch tables failed to compile; one table doubles
-        # the cap, which doubles the chunk= group density available to
-        # one dispatch)
-        x_refs = refs[:tc_k]
-        s_refs = refs[tc_k:2 * tc_k]
-        lens_ref = refs[2 * tc_k]
-        qt_ref = refs[2 * tc_k + 1]
-        out_ref = refs[2 * tc_k + 2]
-        for j in range(tc_k):
-            xb = x_refs[j][0]                           # [lmax, D]
-            qm = qt_ref[j * tile_m:(j + 1) * tile_m, :]  # [m, D]
-            dots = jax.lax.dot_general(
-                qm.astype(dt), xb, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=prec,
-            )                                            # [m, lmax]
-            sq = s_refs[j][0, 0][None, :]                # [1, lmax]
-            sqq = jnp.sum(qm * qm, axis=1, keepdims=True)
-            dd = jnp.maximum(sq - 2.0 * dots + sqq, 0.0)
-            if metric == "l2":
-                dd = jnp.sqrt(dd)
-            ln = lens_ref[0, 0, j]
-            col = jax.lax.broadcasted_iota(jnp.int32, (tile_m, lmax), 1)
-            out_ref[j * tile_m:(j + 1) * tile_m, :] = jnp.where(
-                col < ln, dd, jnp.inf)
+    def kern(tb_ref, lens_ref, x_ref, sq_ref, q_ref, out_ref):
+        t = pl.program_id(0)
+        blk = tb_ref[t]
+        ln = lens_ref[t]
+        rows = t * tile_m + jnp.arange(tile_m)
+        dcol = jnp.arange(dp)
+        dmask = (dcol < d)[None, :]
+        qm = plgpu.load(q_ref.at[rows[:, None], dcol[None, :]],
+                        mask=dmask, other=0.0)           # [m, dp] f32
+        sqq = jnp.sum(qm * qm, axis=1)[:, None]         # [m, 1]
+        qd = qm.astype(dt)
 
-    def x_map(j):
-        return lambda i, tb_ref: (tb_ref[i * tc_k + j], 0, 0)
+        def chunk(c, carry):
+            cols = c * bl + jnp.arange(bl)
+            cmask = cols < lmax
+            xb = plgpu.load(x_ref.at[blk, cols[:, None], dcol[None, :]],
+                            mask=cmask[:, None] & dmask, other=0)  # [bl, dp]
+            dots = pl.dot(qd, xb, trans_b=True, precision=prec)
+            sq = plgpu.load(sq_ref.at[blk, cols], mask=cmask, other=0.0)
+            _store_rows(out_ref, rows, cols, sq[None, :] - 2.0 * dots + sqq,
+                        ln, lmax, metric)
+            return carry
 
-    in_specs = (
-        [pl.BlockSpec((1, lmax, d), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, lmax), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, tc_k), lambda i, tb_ref: (i, 0, 0))]
-        + [pl.BlockSpec((tc_k * tile_m, d), lambda i, tb_ref: (i, 0))]
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nt // tc_k,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((tc_k * tile_m, lmax),
-                         lambda i, tb_ref: (i, 0)),
-        ],
-    )
-    (out,) = pl.pallas_call(
+        lax.fori_loop(0, n_chunks, chunk, 0)
+
+    return pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nt * tile_m, lmax), jnp.float32)],
+        grid=(nt,),
+        out_shape=jax.ShapeDtypeStruct((nt * tile_m, lmax), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(**_COMPILER),
         interpret=interpret,
-    )(tb.astype(jnp.int32),
-      *([x_leaf] * tc_k), *([sq_leaf[:, None, :]] * tc_k),
-      lens_t.astype(jnp.int32).reshape(nt // tc_k, 1, tc_k), qt)
-    return out
+        name="rpt_grouped_tiles",
+    )(tb.astype(jnp.int32), lens_t.astype(jnp.int32), x_leaf, sq_leaf,
+      qt.astype(jnp.float32))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("metric", "tile_m", "tc_k", "interpret"),
-)
-def grouped_score_tiles_int8(x_leaf, sq_leaf, scale, tb, lens_t, qt,
-                             metric, tile_m, tc_k, interpret=False):
-    """:func:`grouped_score_tiles` for int8-quantized blocks: query rows
-    are symmetrically int8-quantized per row (the per-pair scorer's
-    contract, `ops/grouped._quantize_rows`), the tile matmul runs int8 x
-    int8 -> int32 on the MXU, and the factored-L2 assembly dequantizes
-    with the block scale x the per-row query scale against the EXACT
-    stored slot norms and true f32 query norms -- bit-comparable to the
-    XLA int8 grouped path by construction.  ``scale: f32[G]`` per-block
-    quantization scales.
-    """
-    from .grouped import _quantize_rows
-
-    g, lmax, d = x_leaf.shape
-    nt = tb.shape[0]
-    assert nt % tc_k == 0, (nt, tc_k)
-    q_i8, qscale = _quantize_rows(qt)       # [nt*m, D] int8, [nt*m, 1]
-    sqq = jnp.sum(qt * qt, axis=1, keepdims=True)   # true norms [nt*m, 1]
-    scale_t = jnp.take(scale, tb)                   # [nt]
-
-    def kern(tb_ref, *refs):
-        x_refs = refs[:tc_k]
-        s_refs = refs[tc_k:2 * tc_k]
-        lens_ref = refs[2 * tc_k]
-        scale_ref = refs[2 * tc_k + 1]
-        q_ref = refs[2 * tc_k + 2]
-        qs_ref = refs[2 * tc_k + 3]
-        qq_ref = refs[2 * tc_k + 4]
-        out_ref = refs[2 * tc_k + 5]
-        for j in range(tc_k):
-            xb = x_refs[j][0]                            # [lmax, D] i8
-            qm = q_ref[j * tile_m:(j + 1) * tile_m, :]   # [m, D] i8
-            dots = jax.lax.dot_general(
-                qm, xb, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32)        # [m, lmax]
-            sc = scale_ref[0, 0, j]
-            qs = qs_ref[j * tile_m:(j + 1) * tile_m, :]  # [m, 1]
-            dotsf = dots.astype(jnp.float32) * (sc * qs)
-            sq = s_refs[j][0, 0][None, :]
-            qq = qq_ref[j * tile_m:(j + 1) * tile_m, :]
-            dd = jnp.maximum(sq - 2.0 * dotsf + qq, 0.0)
-            if metric == "l2":
-                dd = jnp.sqrt(dd)
-            ln = lens_ref[0, 0, j]
-            col = jax.lax.broadcasted_iota(jnp.int32, (tile_m, lmax), 1)
-            out_ref[j * tile_m:(j + 1) * tile_m, :] = jnp.where(
-                col < ln, dd, jnp.inf)
-
-    def x_map(j):
-        return lambda i, tb_ref: (tb_ref[i * tc_k + j], 0, 0)
-
-    nc = nt // tc_k
-    in_specs = (
-        [pl.BlockSpec((1, lmax, d), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, lmax), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, tc_k), lambda i, tb_ref: (i, 0, 0))]
-        + [pl.BlockSpec((1, 1, tc_k), lambda i, tb_ref: (i, 0, 0))]
-        + [pl.BlockSpec((tc_k * tile_m, d), lambda i, tb_ref: (i, 0))]
-        + [pl.BlockSpec((tc_k * tile_m, 1), lambda i, tb_ref: (i, 0))]
-        + [pl.BlockSpec((tc_k * tile_m, 1), lambda i, tb_ref: (i, 0))]
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nc,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((tc_k * tile_m, lmax),
-                         lambda i, tb_ref: (i, 0)),
-        ],
-    )
-    (out,) = pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((nt * tile_m, lmax), jnp.float32)],
-        interpret=interpret,
-    )(tb.astype(jnp.int32),
-      *([x_leaf] * tc_k), *([sq_leaf[:, None, :]] * tc_k),
-      lens_t.astype(jnp.int32).reshape(nc, 1, tc_k),
-      scale_t.astype(jnp.float32).reshape(nc, 1, tc_k),
-      q_i8, qscale, sqq)
-    return out
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("metric", "tile_m", "tc_k", "kp", "interpret",
-                     "precision"),
-)
-def grouped_score_topk(x_leaf, sq_leaf, id_leaf, tb, lens_t, qt, metric,
-                       tile_m, tc_k, kp, precision=None, interpret=False):
-    """:func:`grouped_score_tiles` fused with a per-slot top-``kp``
-    extraction: returns ``(d f32[nt * tile_m, kp], ids int32[nt * tile_m,
-    kp])`` -- each tile slot's ``kp`` nearest in-block candidates in
-    ascending distance order, with the candidate's POINT ID read from the
-    id block that rides the same tile DMA.
-
-    Why: the selection tail's full ``[B, probes * lmax]`` payload sort is
-    the serving pipeline's largest stage once scoring is fused (measured
-    ~17 ms of a ~41 ms 32768-query flagship batch), and every previous
-    attempt to shrink it (``approx_max_k``, per-probe XLA sorts) lost on
-    the id-payload gather economics (~8 ns per element-granular index).
-    Here the ids arrive BLOCK-granular inside the kernel (one extra
-    ``lmax``-int row per tile on a 64 KB block DMA), so the tail shrinks
-    to ``probes * kp`` wide with no per-element id gather.  EXACT for the
-    final per-query top-k whenever ``kp >= k``: a query's globally k-th
-    nearest candidate is beaten by < k candidates overall, hence by < k
-    within any single block that contains it.  (``min_votes > 1`` needs
-    the full per-block lists -- callers keep the full kernel there.)
-
-    Tie handling matches the payload sort bit-for-bit: equal distances
-    extract in ascending slot order (``lax.sort`` is stable over the
-    slot-ordered flat layout).
+@functools.partial(jax.jit, static_argnames=("metric", "tile_m", "interpret"))
+def grouped_score_tiles_int8(x_leaf, sq_leaf, scale, tb, lens_t, q_i8,
+                             qscale, sqq, metric, tile_m, interpret=False):
+    """:func:`grouped_score_tiles` for int8-quantized blocks: the tile dot
+    runs int8 x int8 -> int32 on the tensor cores, and the factored-L2
+    assembly dequantizes with the block scale x the per-row query scale
+    against the EXACT stored slot norms and true f32 query norms -- the
+    same arithmetic as the XLA int8 grouped path.  ``scale: f32[G]``
+    per-block quantization scales; the query rows arrive quantized in
+    tile-slot order (the caller quantizes each query once,
+    `ops/grouped._quantize_rows`): ``q_i8: int8[nt * tile_m, D]``,
+    ``qscale: f32[nt * tile_m]`` and their true squared norms ``sqq:
+    f32[nt * tile_m]``.
     """
     g, lmax, d = x_leaf.shape
     nt = tb.shape[0]
-    assert nt % tc_k == 0, (nt, tc_k)
-    dt = x_leaf.dtype
-    prec = precision
+    dp, bl, n_chunks = _blocking(lmax, d, jnp.int8)
 
-    def kern(tb_ref, *refs):
-        x_refs = refs[:tc_k]
-        s_refs = refs[tc_k:2 * tc_k]
-        i_refs = refs[2 * tc_k:3 * tc_k]
-        lens_ref = refs[3 * tc_k]
-        qt_ref = refs[3 * tc_k + 1]
-        od_ref = refs[3 * tc_k + 2]
-        oi_ref = refs[3 * tc_k + 3]
-        dds, idss = [], []
-        for j in range(tc_k):
-            xb = x_refs[j][0]                            # [lmax, D]
-            qm = qt_ref[j * tile_m:(j + 1) * tile_m, :]  # [m, D]
-            dots = jax.lax.dot_general(
-                qm.astype(dt), xb, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=prec,
-            )                                            # [m, lmax]
-            sq = s_refs[j][0, 0][None, :]
-            sqq = jnp.sum(qm * qm, axis=1, keepdims=True)
-            dd = jnp.maximum(sq - 2.0 * dots + sqq, 0.0)
-            if metric == "l2":
-                dd = jnp.sqrt(dd)
-            ln = lens_ref[0, 0, j]
-            col = jax.lax.broadcasted_iota(jnp.int32, (tile_m, lmax), 1)
-            dds.append(jnp.where(col < ln, dd, jnp.inf))
-            idss.append(jnp.broadcast_to(i_refs[j][0, 0][None, :],
-                                         (tile_m, lmax)))
-        # extraction batched over the WHOLE tc_k chunk: a per-tile [8,
-        # lmax] loop is one vreg per op and the serial min/mask chain is
-        # instruction-issue bound (measured ~1.2 ms per extracted
-        # element at the flagship); batching to [tc_k * 8, lmax]
-        # amortizes every instruction over tc_k tiles
-        dd = jnp.concatenate(dds, axis=0)      # [tc_k * m, lmax]
-        ids_b = jnp.concatenate(idss, axis=0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (tc_k * tile_m, lmax), 1)
-        dcols, icols = [], []
-        for _ in range(kp):
-            mval = jnp.min(dd, axis=1)         # [tc_k * m]
-            # lowest slot index among the minima (stable-sort ties)
-            idx = jnp.min(
-                jnp.where(dd == mval[:, None], col, lmax), axis=1)
-            is_sel = col == idx[:, None]
-            dcols.append(mval)
-            icols.append(jnp.sum(jnp.where(is_sel, ids_b, 0), axis=1))
-            dd = jnp.where(is_sel, jnp.inf, dd)
-        od_ref[:, :] = jnp.stack(dcols, 1)
-        oi_ref[:, :] = jnp.stack(icols, 1)
+    def kern(tb_ref, lens_ref, scale_ref, x_ref, sq_ref, q_ref, qs_ref,
+             qq_ref, out_ref):
+        t = pl.program_id(0)
+        blk = tb_ref[t]
+        ln = lens_ref[t]
+        sc = scale_ref[blk]
+        rows = t * tile_m + jnp.arange(tile_m)
+        dcol = jnp.arange(dp)
+        dmask = (dcol < d)[None, :]
+        qm = plgpu.load(q_ref.at[rows[:, None], dcol[None, :]],
+                        mask=dmask, other=0)             # [m, dp] i8
+        qs = qs_ref[rows][:, None]                       # [m, 1]
+        qq = qq_ref[rows][:, None]
 
-    def x_map(j):
-        return lambda i, tb_ref: (tb_ref[i * tc_k + j], 0, 0)
+        def chunk(c, carry):
+            cols = c * bl + jnp.arange(bl)
+            cmask = cols < lmax
+            xb = plgpu.load(x_ref.at[blk, cols[:, None], dcol[None, :]],
+                            mask=cmask[:, None] & dmask, other=0)  # [bl, dp]
+            dots = pl.dot(qm, xb, trans_b=True)           # int32
+            sq = plgpu.load(sq_ref.at[blk, cols], mask=cmask, other=0.0)
+            # (dots * block scale) * query scale: the XLA path's
+            # association, so both round alike
+            dotsf = dots.astype(jnp.float32) * sc * qs
+            _store_rows(out_ref, rows, cols, sq[None, :] - 2.0 * dotsf + qq,
+                        ln, lmax, metric)
+            return carry
 
-    in_specs = (
-        [pl.BlockSpec((1, lmax, d), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, lmax), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, lmax), x_map(j)) for j in range(tc_k)]
-        + [pl.BlockSpec((1, 1, tc_k), lambda i, tb_ref: (i, 0, 0))]
-        + [pl.BlockSpec((tc_k * tile_m, d), lambda i, tb_ref: (i, 0))]
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nt // tc_k,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((tc_k * tile_m, kp),
-                         lambda i, tb_ref: (i, 0)),
-            pl.BlockSpec((tc_k * tile_m, kp),
-                         lambda i, tb_ref: (i, 0)),
-        ],
-    )
-    out_d, out_i = pl.pallas_call(
+        lax.fori_loop(0, n_chunks, chunk, 0)
+
+    return pl.pallas_call(
         kern,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((nt * tile_m, kp), jnp.float32),
-            jax.ShapeDtypeStruct((nt * tile_m, kp), jnp.int32),
-        ],
+        grid=(nt,),
+        out_shape=jax.ShapeDtypeStruct((nt * tile_m, lmax), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(**_COMPILER),
         interpret=interpret,
-    )(tb.astype(jnp.int32),
-      *([x_leaf] * tc_k), *([sq_leaf[:, None, :]] * tc_k),
-      *([id_leaf[:, None, :]] * tc_k),
-      lens_t.astype(jnp.int32).reshape(nt // tc_k, 1, tc_k), qt)
-    return out_d, out_i
+        name="rpt_grouped_tiles_int8",
+    )(tb.astype(jnp.int32), lens_t.astype(jnp.int32),
+      scale.astype(jnp.float32), x_leaf, sq_leaf, q_i8,
+      qscale.astype(jnp.float32), sqq.astype(jnp.float32))

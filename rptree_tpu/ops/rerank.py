@@ -12,7 +12,7 @@ Here:
   is an id-sort + adjacent-equality mask;
 * the exact distance is computed in the factored form
   ``d2(x, q) = |x|^2 - 2 x.q + |q|^2`` so the bulk of the work is one
-  batched GEMM over gathered candidate rows (MXU-friendly), with squared
+  batched GEMM over gathered candidate rows (matmul-friendly), with squared
   norms precomputed once per dataset;
 * selection is ``lax.top_k`` over negated distances.
 """

@@ -2,22 +2,21 @@
 
 The standard leaf-blocked pack (:meth:`RPForest.pack_leaves`) stores each
 tree's leaves as CONTIGUOUS row blocks -- T full copies of the dataset in
-HBM, bought for block-gather fetch bandwidth (575 vs 198 GB/s aligned vs
-not, and ~8 ns per gather INDEX either way; CLAUDE.md perf model).  At
-T=8 trees over 10M f32 x 128-d points that is ~41 GB: past a single
-v5e's HBM while the dataset itself is 5 GB.
+device memory, bought for contiguous block fetches (one index per block
+instead of one per row).  At T=8 trees over 10M f32 x 128-d points that
+is ~41 GB while the dataset itself is 5 GB.
 
 ``pack_leaves(store="shared")`` keeps ONE shared row store (the dataset
 array itself, no copy) and packs only the per-block slot -> point-id
 tables (int32, ~``T/D``-th the block bytes).  Serving fetches a probed
 block by gathering its ``lmax`` ROWS by id instead of one contiguous
-block -- ``lmax``x more gather indices, measured ~2-4x slower on the
-fetch stage -- in exchange for ``T``x less index memory: the memory-
-bounded regime (datasets near HBM capacity) where the blocked layout
+block -- ``lmax``x more gather indices, a slower fetch stage -- in
+exchange for ``T``x less index memory: the memory-bounded regime
+(datasets near device-memory capacity) where the blocked layout
 cannot exist at all.  Reference analogue: the reference's single
 ``RPForest`` over one vector store with per-tree leaf id sets
 (``src/Data/RPTree/Internal.hs:236-255``); the blocked-vs-shared split is
-a TPU memory/bandwidth trade with no reference counterpart.
+a device memory/bandwidth trade with no reference counterpart.
 
 Exact by construction: the scored rows are the SAME f32 rows the dataset
 holds, so results are bit-identical to an unquantized blocked pack

@@ -1,12 +1,12 @@
-"""Batched sparse input support (the reference's ``SVector`` datasets, TPU-first).
+"""Batched sparse input support (the reference's ``SVector`` datasets).
 
 The reference stores each sparse point as a sorted coordinate list and walks
 it with pointer loops (``src/Data/RPTree/Internal.hs:92-119,351-382``).  On
-TPU, ragged per-row structure defeats XLA tiling, so the dataset-level
+an accelerator, ragged per-row structure defeats XLA tiling, so the dataset-level
 representation here is **padded ELL**: every row holds exactly ``K`` (max
 nnz) column/value slots, with padding encoded as ``col=0, val=0`` -- padding
 therefore contributes nothing to inner products, projections, or squared
-norms, and every op below is a dense gather/GEMM that XLA maps onto the MXU.
+norms, and every op below is a dense gather/GEMM that XLA compiles as such.
 """
 
 from __future__ import annotations

@@ -19,15 +19,13 @@ the largest margin-priority are dropped (the same priority the reference's
 path, ``RPTree.hs:317-346``).  With ``budget >= n_leaves`` the traversal is
 exact (identical leaf set to the reference's ``candidates``).
 
-TPU layout note: all per-level state is kept as ``[F, B]`` -- the query
-batch on the 128-wide lane axis, the (small) frontier on sublanes.  The
-naive ``[B, F]`` layout puts F ~ 4..32 on lanes, wasting >= 75% of every
-VPU op; measured on v5e this layout plus the compare-exchange compaction
-below is ~5x faster end-to-end than a ``[B, F]`` + ``lax.top_k`` version.
-The 2F -> F frontier compaction is a bitonic sorting network expressed as
-``min``/``max``/``where`` along the sublane axis (F is a static power-of-2
-after padding), which XLA fuses into a handful of full-width VPU ops --
-no ``sort``/``top_k`` call, no layout change.
+Layout note: all per-level state is kept as ``[F, B]`` -- the (large)
+query batch on the minor axis, the (small) frontier on the major one, so
+every elementwise op runs over the full batch.  The 2F -> F frontier
+compaction is a bitonic sorting network expressed as
+``min``/``max``/``where`` along the frontier axis (F is a static power-of-2
+after padding), which XLA fuses into a handful of elementwise ops -- no
+``sort``/``top_k`` call, no layout change.
 
 Encoding: a frontier entry is an int32 -- ``>= 0`` means "split-segment
 index at the current level", ``< 0`` (but not INVALID) encodes a terminal
@@ -109,14 +107,14 @@ _ONEHOT_MAX = 64
 def _lookup_level(thr_l, mgl_l, mgh_l, child_l, seg):
     """All five per-level node-table lookups for frontier ``seg [F, B]``.
 
-    TPU gathers cost ~ns per INDEX regardless of payload, so the five
-    separate ``table[seg]`` lookups (threshold, two margins, two children)
-    that a naive traversal issues per level dominate its runtime.  Two
-    regimes:
+    A gather's cost follows its number of INDICES more than its payload,
+    so the five separate ``table[seg]`` lookups (threshold, two margins,
+    two children) that a naive traversal issues per level dominate its
+    runtime.  Two regimes:
 
     * small tables (``n_segs <= 64``, the upper tree levels): a single
       one-hot compare reused for all five select-and-sum reductions --
-      pure full-lane VPU work, no gather at all;
+      pure elementwise work, no gather at all;
     * large tables (the deep levels): pack all five columns into ONE
       ``f32[n_segs, 8]`` row (child ints bitcast to f32, values preserved
       through the gather) and issue a single row gather -- 1/5th the
@@ -174,9 +172,8 @@ def traverse_tree(
         tables hoist out of the loop as closure constants.  May hold the
         FLAT all-tree layout (``[T * S0, ...]`` rows) -- then ``toff``
         (scalar tree index) selects this tree's span.  Gathers through a
-        vmap-batched table pay ~4x per index vs the flat form (measured:
-        5.6 vs 1.4 ns at the iid traversal shapes), which is why the
-        forest-level callers always pass flat tables.
+        vmap-batched table carry a batch dimension on every index, which
+        is why the forest-level callers always pass flat tables.
       toff: scalar tree index into flat ``tabs`` (None = tables are
         per-tree).
 
@@ -263,8 +260,8 @@ def _traverse_frontier(
 # lexicographic (priority, enc) minimum of the <=2 children -- a pure scalar
 # descent per query.  That removes the bitonic network, and (the actual win)
 # lets the deep levels' node-table lookups be fetched as whole SUBTREES: one
-# row gather per ~6 levels instead of one per level.  TPU gathers cost ~8ns
-# per INDEX regardless of payload, so packing a k-level subtree (2^k - 1
+# row gather per ~6 levels instead of one per level.  A gather's cost
+# follows its INDEX count, so packing a k-level subtree (2^k - 1
 # nodes x 5 values) into one table row divides the traversal's gather count
 # by k; the in-register descent over the fetched row is one-hot select-sums
 # (full-lane VPU ops) whose cost (~sum 2^i * 5 per block) is negligible.
@@ -337,10 +334,9 @@ def _b1_blocks(plan: TreePlan) -> List[_B1Block]:
 
     Child encodings ride the table as exact f32 VALUES (not bitcast bit
     patterns: those are NaN payloads for negative encs and denormals for
-    small positive ones, and XLA:TPU lowerings may move gathered data
+    small positive ones, and XLA lowerings may move gathered data
     through arithmetic -- canonicalizing NaNs and flushing denormals --
-    which corrupted the descent; measured as an all-masked traversal at
-    the 1M flagship).  Exactness needs |enc| < 2^24, so plans beyond
+    which corrupts the descent into an all-masked traversal).  Exactness needs |enc| < 2^24, so plans beyond
     that disable the fast path (the frontier handles them)."""
     cached = getattr(plan, "_b1_cache", None)
     if cached is None:

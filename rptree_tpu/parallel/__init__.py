@@ -1,8 +1,7 @@
-"""TPU parallel runtime: device meshes, sharded build, sharded query.
+"""Parallel runtime: device meshes, sharded build, sharded query.
 
 The reference has no parallelism of any kind (SURVEY.md section 2.11); this
-package is the first-class TPU component replacing its host-side Semigroup
-folds with ICI collectives.
+package replaces its host-side Semigroup folds with device collectives.
 """
 
 from .mesh import QUERY_AXIS, TREE_AXIS, forest_mesh

@@ -2,19 +2,20 @@
 
 The reference is a single-core in-memory library (SURVEY.md section 2.11:
 no threads, no processes, no communication anywhere in ocramz/rp-tree), so
-TPU parallelism has no reference counterpart to imitate.  The natural axes
+device parallelism has no reference counterpart to imitate.  The natural axes
 of this workload are:
 
 * ``"tree"`` -- the forest axis.  Trees are independent during both build
   (``createMulti``'s per-tree map, ``Internal.hs:228-240``) and candidate
   generation; only the candidate-union / top-k merge at the end of a query
   couples them (the Semigroup fold at ``RPTree.hs:176``), which becomes an
-  ``all_gather`` + re-top-k over ICI.
+  ``all_gather`` + re-top-k over the interconnect.
 * ``"query"`` -- the query batch.  Queries never interact; this axis is
   embarrassingly parallel (pure data parallelism).
 
-Both axes ride ICI within a slice; there is no cross-slice (DCN) traffic on
-the query path at all.
+The mesh is a plain reshape of the device list, shaped by the algorithm
+alone: every device reaches every other at the same rate (NVLink, all to
+all, within a host), so no placement is better than another.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 A deliberately direct, pointer-tree implementation of ocramz/rp-tree's
 build and query logic, used as (a) the parity oracle in tests and (b) the
-CPU baseline the bench compares against (BASELINE.md: baselines must be
-self-generated).  This is *not* the TPU engine -- see
+CPU baseline the bench compares against (baselines must be
+self-generated).  This is *not* the accelerator engine -- see
 :mod:`rptree_tpu.models.forest` for that -- and it is written from the
 behavioural spec in SURVEY.md, not translated code.
 

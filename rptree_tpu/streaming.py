@@ -7,7 +7,7 @@ refining thresholds by running average / margins by monoid merge
 documented contract (Conduit.hs:49-57): the source is non-empty,
 *stationary*, and bounded -- the result is only produced at end-of-stream.
 
-TPU-native design (SURVEY.md section 7, M5): the host input pipeline
+Design (SURVEY.md section 7, M5): the host input pipeline
 accumulates device-resident chunks and the index is (re)built with the exact
 level-synchronous builder at finalize time.  Under the stationarity
 assumption this strictly dominates the reference's approximate

@@ -3,7 +3,7 @@ sampling (the reference's L1 layer, ``src/Data/RPTree/Gen.hs``).
 
 The reference threads a ``splitmix`` counter-based PRNG through a ``Gen``
 state monad so everything is a pure function of one ``Word64`` seed
-(``Gen.hs:13``, ``Batch.hs:15``).  The TPU-native equivalent is
+(``Gen.hs:13``, ``Batch.hs:15``).  The equivalent here is
 ``jax.random``'s counter-based threefry keys with ``fold_in`` discipline:
 the projection matrix for (tree t, level l) comes from
 ``fold_in(fold_in(key, t), l)``, giving the same "reproducible from one
@@ -12,6 +12,7 @@ seed, order-independent" property without any sequential state.
 
 from __future__ import annotations
 
+import functools
 import secrets
 from typing import Callable, Iterator
 
@@ -33,6 +34,7 @@ __all__ = [
     "mixture",
     "mixture2",
     "data_batch",
+    "clustered_mixture",
     "data_source",
     "sample_wor",
 ]
@@ -190,6 +192,26 @@ def circle2d2(key, n: int) -> jax.Array:
 def data_batch(seed, n: int, gen: Callable) -> jax.Array:
     """Sample a full batch dataset (reference ``dataBatch``, Batch.hs:66-75)."""
     return gen(key_from_seed(seed), n)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def clustered_mixture(key, n: int, centers: int, dim: int, sigma: float,
+                      n_queries: int):
+    """Device-side Gaussian mixture (the reference's bench data family,
+    ``Internal/Testing.hs:38-50``): ``centers`` unit-Gaussian centres,
+    ``n`` points at N(centre, sigma), and ``n_queries`` queries perturbed
+    from random data points by sigma/2.  Returns ``(x f32[n, dim], q
+    f32[n_queries, dim])``, generated on the device from ``key``."""
+    kc, ka, kn, kq, kp = jax.random.split(key, 5)
+    cen = jax.random.normal(kc, (centers, dim), jnp.float32)
+    assign = jax.random.randint(ka, (n,), 0, centers)
+    x = (jnp.take(cen, assign, axis=0)
+         + sigma * jax.random.normal(kn, (n, dim), jnp.float32))
+    qi = jax.random.randint(kq, (n_queries,), 0, n)
+    q = (jnp.take(x, qi, axis=0)
+         + 0.5 * sigma * jax.random.normal(kp, (n_queries, dim),
+                                           jnp.float32))
+    return x, q
 
 
 def data_source(seed, n: int, chunk_size: int, gen: Callable) -> Iterator[np.ndarray]:

@@ -2,7 +2,7 @@
 
 The reference CBOR-serialises whole trees (including the points stored at
 the leaves) via the ``serialise`` package, one lazy ByteString per tree with
-undefined order (``src/Data/RPTree/Internal.hs:185-196``).  The TPU-native
+undefined order (``src/Data/RPTree/Internal.hs:185-196``).  This engine's
 index is array-structured, so checkpoints are npz archives: projections,
 per-level thresholds/margins, permutations, the dataset, and a JSON header
 with the static plan parameters (SURVEY.md section 5, checkpoint/resume).
@@ -71,7 +71,7 @@ def _header(forest: RPForest) -> dict:
         "seed": forest.seed if isinstance(forest.seed, int) else None,
     }
     # learned grouped tile capacities (knn_grouped auto-sizing), tagged
-    # with the pack-layout signature they were measured under: a restored
+    # with the pack-layout signature they were learned under: a restored
     # server can serve check=False immediately without re-walking the
     # auto-capacity ladder, but only if it repacks the SAME layout
     caps = getattr(forest, "_grouped_nt", None)

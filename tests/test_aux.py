@@ -165,7 +165,7 @@ def test_gen_custom_component_sampler():
 
 
 def test_tune_build_clustered():
-    """VERDICT r3 item 5: build-side tuning encodes the measured
+    """Build-side tuning encodes the
     ``min_leaf ~ n/centers`` sweet spot; the winner transfers to the
     full-dataset scale as min_leaf * full_n / sample."""
     import numpy as np

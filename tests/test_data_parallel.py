@@ -83,7 +83,7 @@ def _addressable_max_rows(arr):
 
 
 def test_memory_complete_end_to_end(single, data):
-    """VERDICT r1 item 3: build -> pack -> serve -> recall with the
+    """Build -> pack -> serve -> recall with the
     dataset sharded throughout -- no device ever holds the full dataset
     or the full index."""
     mesh = data_mesh(8)
@@ -201,7 +201,7 @@ def _make_ell(n=1600, dim=96, nnz=8, seed=21):
 
 
 def test_data_parallel_ell_build_matches_single_device():
-    """VERDICT r2 item 3: bag-of-words (ELL) datasets take the sharded
+    """Bag-of-words (ELL) datasets take the sharded
     build path -- projections are row-local so the sharded build's leaf
     contents equal the single-device ELL build's exactly."""
     ell = _make_ell()
@@ -366,7 +366,7 @@ def test_dp_centered_int8(single, data):
 
 
 def test_dp_sub_block_parity(single, data):
-    """VERDICT r3 item 3d (data mesh): sub_block packing from the sharded
+    """Sub_block packing from the sharded
     rows; f32 sub-blocking is an exact re-blocking of the leaf blocks."""
     f = forest_batch_data_parallel(SEED, 6, 12, T, 1.0, data,
                                    mesh=data_mesh(8))
@@ -391,7 +391,7 @@ def test_dp_sub_block_parity(single, data):
 
 
 def test_dp_ell_rebuild(single, data):
-    """VERDICT r3 item 3c: rebuild() on a data-parallel ELL dataset stays
+    """Rebuild() on a data-parallel ELL dataset stays
     sparse and sharded; pending + folded + tombstoned rows all resolve."""
     ell = _make_ell()
     f = forest_batch_data_parallel(SEED, 6, 12, T, 1.0, ell,
@@ -424,7 +424,7 @@ def test_dp_ell_rebuild(single, data):
 
 
 def test_dp_recall_after_fold(single, data):
-    """VERDICT r3 item 3b (data mesh): recall_with after fold()."""
+    """Recall_with after fold()."""
     f = forest_batch_data_parallel(SEED, 6, 12, T, 1.0, data,
                                    mesh=data_mesh(8))
     f.pack_leaves(slack=8)
@@ -442,7 +442,7 @@ def test_dp_recall_after_fold(single, data):
 
 
 def test_dp_query_axis_composition(single, data):
-    """VERDICT r3 item 9: (data x query) 2-D mesh -- giant batches split
+    """(data x query) 2-D mesh -- giant batches split
     across the query axis instead of replicating B x D onto every data
     shard; results match the 1-D data mesh and the single device."""
     mesh2 = data_mesh(4, n_query=2)
@@ -491,7 +491,7 @@ def test_tune_build_on_sharded_dataset(single, data):
     """tune_build accepts a sharded forest handle (or sharded array):
     the subsample is gathered ON DEVICE (the host never buffers more
     than ``sample`` rows), and the derived knobs equal the host-rows
-    sweep on the same subsample (VERDICT r4 weak-5)."""
+    sweep on the same subsample."""
     mesh = data_mesh(8)
     f = forest_batch_data_parallel(SEED, 6, 12, T, 1.0, data, mesh=mesh)
     rng = np.random.default_rng(6)

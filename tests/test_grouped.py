@@ -262,7 +262,7 @@ def test_grouped_capacity_cache_policy():
 def test_grouped_overflow_telemetry():
     """check=False overflow is DETECTABLE without a per-batch host sync:
     the needed-tile count rides as a device scalar and
-    grouped_overflow() fetches it on demand (VERDICT r4 item 4)."""
+    grouped_overflow() fetches it on demand."""
     f, q = _mk()
     assert f.grouped_overflow() is None
     d0, i0 = map(np.asarray, f.knn_grouped(q, K))

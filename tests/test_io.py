@@ -85,7 +85,7 @@ def test_deserialise_error_surface():
 
 
 def test_sharded_checkpoint_roundtrip(tmp_path):
-    """VERDICT r2 item 7: per-shard checkpoints -- save never materializes
+    """Per-shard checkpoints -- save never materializes
     the full dataset in one buffer (one npz per shard), restore uploads
     each shard straight to its device and yields a working
     DataParallelForest with per-device rows still N/S."""
@@ -175,7 +175,7 @@ def test_saved_grouped_capacities_roundtrip(tmp_path):
     """Learned grouped tile capacities persist through save_forest and
     reinstall on a restored server that repacks the SAME layout -- the
     first check=False call then serves without re-walking the
-    auto-capacity ladder (VERDICT r4 item 4).  A different layout (or no
+    auto-capacity ladder.  A different layout (or no
     pack) must NOT inherit them."""
     f = _forest()
     f.pack_leaves()

@@ -5,9 +5,9 @@ stand-in cluster -- the standard JAX recipe for "multi-node without a
 real cluster", SURVEY.md section 4).
 
 The reference has no distributed story at all (SURVEY.md section 2.11);
-the spec here is BASELINE.md's GIST-scale ingest: each host feeds only its
-local rows (``jax.make_array_from_process_local_data``), the build's
-radix-selection collectives run over DCN+ICI, and every host gets the
+the spec here is a GIST-scale ingest: each host feeds only its local
+rows (``jax.make_array_from_process_local_data``), the build's
+radix-selection collectives run across hosts, and every host gets the
 same replicated tree structure back.
 """
 

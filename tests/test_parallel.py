@@ -1,5 +1,5 @@
 """Sharded build/query vs single-device results (SURVEY.md section 4:
-"single-device vs sharded bit-exactness" is a TPU-specific test the
+"single-device vs sharded bit-exactness" is a sharding-specific test the
 reference cannot have).  Runs on the 8-virtual-device CPU mesh from
 conftest.py."""
 
@@ -359,7 +359,7 @@ def test_sharded_knn_h_respects_remove_and_add(data, queries):
 
 
 def test_sharded_knn_batched_parity(data, queries):
-    """VERDICT r2 item 4: knn_batched on sharded forests runs the lax.map
+    """Knn_batched on sharded forests runs the lax.map
     chunking INSIDE the sharded pipeline; results match chunked knn()
     exactly on both leaf-sharded and tree-sharded packed layouts."""
     q32 = np.concatenate([queries] * 3, axis=0)[:32]  # 32 queries
@@ -390,7 +390,7 @@ def test_sharded_knn_batched_parity(data, queries):
 
 
 def test_sharded_fold_tree_and_leaf_modes(data):
-    """VERDICT r2 item 5: fold() on sharded packed layouts.  New points
+    """Fold() on sharded packed layouts.  New points
     descend the stored thresholds, scatter into each layout's storage
     rows, and are served with dynamic per-block occupancy on both the
     tree-sharded and the round-robin leaf-sharded paths."""
@@ -485,7 +485,7 @@ def test_sharded_centered_int8(data, queries):
 
 
 def test_sharded_sub_block_tree_and_leaf(data, queries):
-    """VERDICT r3 item 3d: sub_block on the tree- and leaf-sharded
+    """Sub_block on the tree- and leaf-sharded
     packers.  f32 sub-blocked packs are an exact re-blocking, so both
     sharded layouts must match the single-device whole-leaf path."""
     base = rt.forest_batch(SEED, MAXD, MINL, T, PNZ, data)
@@ -517,7 +517,7 @@ def test_sharded_sub_block_tree_and_leaf(data, queries):
 
 
 def test_sharded_recall_after_fold(data, queries):
-    """VERDICT r3 item 3b: recall_with on a folded sharded forest (the
+    """Recall_with on a folded sharded forest (the
     folded-aware ground truth + tree-sharded candidate matching)."""
     dist = forest_batch_distributed(
         SEED, MAXD, MINL, T, PNZ, data, mesh=forest_mesh(8, 1)
@@ -537,7 +537,7 @@ def test_sharded_recall_after_fold(data, queries):
 
 
 def test_sharded_ell_fold(queries):
-    """VERDICT r3 item 3a: fold() into sharded (tree-mode) ELL blocks."""
+    """Fold() into sharded (tree-mode) ELL blocks."""
     from rptree_tpu.ops.sparse import EllMatrix
 
     rng = np.random.default_rng(61)
@@ -645,14 +645,14 @@ def test_sharded_knn_grouped_matches_knn(data, queries):
 
 def test_sharded_knn_grouped_selection_kernel_gate(data, queries):
     """selection="kernel" on the sharded grouped path: the fused top-k
-    tail is TPU-only, so the CPU test mesh raises the gate error; vote
-    counting (min_votes > 1) falls back to the sort tail and serves
-    (device parity of the kernel tail itself is pinned in
-    tests/test_topk_kernel.py and BASELINE.md round-4)."""
+    tail runs on the GPU only, so the CPU test mesh raises the gate
+    error; vote counting (min_votes > 1) falls back to the sort tail and
+    serves (parity of the kernel tail itself is pinned in
+    tests/test_topk_kernel.py and checked on the card by chip_smoke.py)."""
     f = forest_batch_distributed(SEED, MAXD, MINL, T, PNZ, data,
                                  mesh=forest_mesh(8))
     f.pack_leaves(shard_by="leaf")
-    with pytest.raises(ValueError, match="TPU backend"):
+    with pytest.raises(ValueError, match="GPU backend"):
         f.knn_grouped(queries, 5, budget=4, selection="kernel")
     d0, i0 = map(np.asarray, f.knn_grouped(queries, 5, budget=4,
                                            min_votes=2))

@@ -77,7 +77,7 @@ def test_build_and_insert_scopes_in_lowered_hlo():
 
 def test_trace_helper_writes_capture(tmp_path):
     """rt.profiling.trace captures a profiler run (the user-invocable
-    form of the stage decomposition; VERDICT r4 item 6)."""
+    form of the stage decomposition)."""
     import os
 
     f, x, q = _mk()

@@ -84,13 +84,13 @@ def test_leaf_contents_match_oracle():
     which the integer check below excludes)."""
     f, ref, x = _build_pair()
     for t in range(f.n_trees):
-        tpu_leaves = [sorted(l) for l in f.leaves(t)]
+        eng_leaves = [sorted(l) for l in f.leaves(t)]
         orc_leaves = [sorted(ids.tolist()) for ids in leaf_spans(ref[t])]
-        assert len(tpu_leaves) == len(orc_leaves)
-        mismatched = sum(a != b for a, b in zip(tpu_leaves, orc_leaves))
+        assert len(eng_leaves) == len(orc_leaves)
+        mismatched = sum(a != b for a, b in zip(eng_leaves, orc_leaves))
         # float32 GEMM vs float64 matvec can flip points at ulp-equal
         # projections; require near-total agreement
-        assert mismatched <= max(1, len(tpu_leaves) // 20)
+        assert mismatched <= max(1, len(eng_leaves) // 20)
 
 
 def test_candidates_match_oracle():
@@ -240,7 +240,7 @@ def test_drop_dataset_serve_only():
 
 def test_add_and_rebuild_freshness():
     """Online insert: pending points are exactly searchable immediately
-    (freshness layer) and fold into the index on rebuild -- the TPU-native
+    (freshness layer) and fold into the index on rebuild -- the batched
     form of the reference's streaming insert (Internal.hs:257-297)."""
     rng = np.random.default_rng(9)
     x = rng.normal(size=(500, 8)).astype(np.float32)
@@ -436,9 +436,9 @@ def test_packed_nonl2_metrics_match_unpacked(circle_forest, metric):
 
 
 def test_brute_force_fastest_mode():
-    """precision="fastest": bf16 tiles + hardware approx_max_k per tile
-    with an exact 2k merge; neighbour sets must stay essentially intact
-    vs the exact f32 scan (measured ~1.0 at k=10 on v5e)."""
+    """precision="fastest": bf16 tiles + approx_max_k per tile with an
+    exact 2k merge; neighbour sets must stay essentially intact vs the
+    exact f32 scan."""
     rng = np.random.default_rng(40)
     x = rng.normal(size=(5000, 32)).astype(np.float32)
     f = forest_batch(12, 3, 2048, 1, 1.0, x)
@@ -508,8 +508,8 @@ def test_fold_oracle_includes_folded_rows():
     """After fold(), brute_force_knn / recall_with / points() cover the
     fold-appended rows, so the ground-truth oracle agrees with the index
     contents: a returned folded neighbour counts as a hit, and points()
-    round-trips the index (ADVICE r2: the oracle previously scanned only
-    self.x and disagreed with the packed blocks)."""
+    round-trips the index (an oracle that scanned only self.x would
+    disagree with the packed blocks)."""
     rng = np.random.default_rng(55)
     x = rng.normal(size=(600, 8)).astype(np.float32)
     f = forest_batch(8, 4, 16, 3, 1.0, x)
@@ -588,7 +588,7 @@ def test_knn_h_buckets_includes_folded_rows():
 
 def test_rebuild_replays_pack_config():
     """rebuild() re-packs with the REMEMBERED pack configuration
-    (dtype/centered/sub_block), not a silent f32 downgrade (ADVICE r3)."""
+    (dtype/centered/sub_block), not a silent f32 downgrade."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(58)
@@ -669,7 +669,7 @@ def test_centered_int8_fold():
 
 
 def test_sub_block_pack_parity_and_centered_rescue():
-    """Sub-leaf blocks (r2 VERDICT item 6): f32 sub-blocked packing is an
+    """Sub-leaf blocks: f32 sub-blocked packing is an
     EXACT re-blocking (same candidates, same results as whole-leaf
     blocks), and per-sub-block centers rescue centered int8 on leaves
     that straddle clusters (the projection-sorted slices are nearly
@@ -709,7 +709,7 @@ def test_sub_block_pack_parity_and_centered_rescue():
         ]))
 
     # SHALLOW forest: leaves straddle clusters, where whole-leaf centered
-    # int8 was measured well below f32 -- per-sub-block centers recover it
+    # int8 falls well below f32 -- per-sub-block centers recover it
     ov_f32 = overlap(f0)
     fc = forest_batch(21, 6, 32, 4, 1.0, x)
     fc.pack_leaves(dtype=jnp.int8, centered=True)
@@ -720,7 +720,7 @@ def test_sub_block_pack_parity_and_centered_rescue():
     # the residue vs f32 is the ONE mixed boundary slice per straddle
     # (~ls/leaf_len of the rows); everything else scores at f32 level
     assert ov_cent_sub > ov_cent + 0.15, (ov_f32, ov_cent, ov_cent_sub)
-    # boundary-adaptive 2-means ordering (r3 VERDICT item 4): at least
+    # boundary-adaptive 2-means ordering: at least
     # as good as the projection sort, and f32 re-blocking stays exact
     fcp = forest_batch(21, 6, 32, 4, 1.0, x)
     fcp.pack_leaves(dtype=jnp.int8, centered=True, sub_block=8,

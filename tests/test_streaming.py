@@ -90,7 +90,7 @@ def test_streaming_oracle_refine_semantics():
 
 
 def test_streaming_data_parallel_bounded_memory():
-    """VERDICT r1 item 4: streaming accumulation is sharded -- chunks land
+    """Streaming accumulation is sharded -- chunks land
     round-robin across the mesh devices (per-device peak O(N/S)), the
     finalize consumes shard-local rows, and the built forest keeps the
     dataset sharded.  GIST-shaped rows (dim 960), scaled down for CI."""
@@ -183,7 +183,7 @@ def test_anytime_partial_index():
 
 
 def test_anytime_partial_index_data_parallel():
-    """anytime_slack + data_parallel (VERDICT r2 item 5): the partial
+    """anytime_slack + data_parallel: the partial
     index is a DataParallelForest with leaf-sharded slack blocks -- the
     anytime view keeps O(N/S) per device and later chunks fold through
     the sharded scatter; build() stays the exact sharded batch build."""
